@@ -8,7 +8,7 @@
 // diagnostics/ess.py) as native code threaded over series.
 //
 // Exposed via ctypes (no pybind11 in the image); see
-// riemannhamiltonianmontecarlo_tpu/diagnostics/native.py.
+// riemannhamiltonianmontecarlo/diagnostics/native.py.
 
 #include <cmath>
 #include <complex>

@@ -50,8 +50,8 @@ def main() -> None:
     ap.add_argument("--out-dir", required=True)
     args = ap.parse_args()
 
-    from riemannhamiltonianmontecarlo_tpu import diagnostics, models, parallel, samplers, utils
-    from riemannhamiltonianmontecarlo_tpu.parallel.mesh import initialize_distributed
+    from riemannhamiltonianmontecarlo import diagnostics, models, parallel, samplers, utils
+    from riemannhamiltonianmontecarlo.parallel.mesh import initialize_distributed
 
     if args.num_processes > 1:
         initialize_distributed(

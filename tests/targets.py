@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from riemannhamiltonianmontecarlo_tpu.models.logreg import ManifoldState
+from riemannhamiltonianmontecarlo.models.logreg import ManifoldState
 
 
 class ConstantMetricGaussian:

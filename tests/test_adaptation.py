@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from riemannhamiltonianmontecarlo_tpu.parallel import run_adaptive
-from riemannhamiltonianmontecarlo_tpu.parallel.adaptation import AdaptationConfig
-from riemannhamiltonianmontecarlo_tpu.samplers import hmc, mala, rmhmc
+from riemannhamiltonianmontecarlo.parallel import run_adaptive
+from riemannhamiltonianmontecarlo.parallel.adaptation import AdaptationConfig
+from riemannhamiltonianmontecarlo.samplers import hmc, mala, rmhmc
 
 from targets import ConstantMetricGaussian
 

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import hmc
-from riemannhamiltonianmontecarlo_tpu.utils.checkpoint import load_state, save_state
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import hmc
+from riemannhamiltonianmontecarlo.utils.checkpoint import load_state, save_state
 
 from targets import ConstantMetricGaussian
 
@@ -36,7 +36,7 @@ def test_checkpoint_roundtrip_resume(tmp_path):
 def test_run_checkpointed_crash_resume_bit_exact(tmp_path):
     """A run killed mid-way resumes from the last segment and produces
     samples bit-identical to the uninterrupted segmented run."""
-    from riemannhamiltonianmontecarlo_tpu.parallel import run_checkpointed
+    from riemannhamiltonianmontecarlo.parallel import run_checkpointed
 
     target = ConstantMetricGaussian(mean=[0.0, 1.0], cov=np.eye(2))
     kernel = hmc.build(target, hmc.HMCConfig(step_size=0.3, num_leapfrog=5))
@@ -64,7 +64,7 @@ def test_run_checkpointed_crash_resume_bit_exact(tmp_path):
 
 def test_run_checkpointed_collect_fn_pytree(tmp_path):
     """Segments of a non-trivial collect_fn pytree reassemble correctly."""
-    from riemannhamiltonianmontecarlo_tpu.parallel import run_checkpointed
+    from riemannhamiltonianmontecarlo.parallel import run_checkpointed
 
     target = ConstantMetricGaussian(mean=[0.0, 1.0], cov=np.eye(2))
     kernel = hmc.build(target, hmc.HMCConfig(step_size=0.3, num_leapfrog=5))

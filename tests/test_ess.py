@@ -11,7 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.diagnostics import (
+from riemannhamiltonianmontecarlo.diagnostics import (
     autocorrelation,
     ess_geyer,
     ess_multichain,
@@ -80,7 +80,7 @@ def test_multichain_sums_per_chain():
 
 
 def test_native_ess_matches_numpy_exact_mode():
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import native
+    from riemannhamiltonianmontecarlo.diagnostics import native
 
     if not native.available():
         pytest.skip("native ESS library not built")
@@ -92,7 +92,7 @@ def test_native_ess_matches_numpy_exact_mode():
 
     stacked = np.stack([x, x[::-1]])
     got3 = native.ess_geyer_native(stacked)
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import ess_multichain
+    from riemannhamiltonianmontecarlo.diagnostics import ess_multichain
 
     np.testing.assert_allclose(
         got3, ess_multichain(stacked, nfft_mode="exact"), rtol=1e-10
@@ -102,7 +102,7 @@ def test_native_ess_matches_numpy_exact_mode():
 def test_device_ess_matches_numpy_exact():
     import jax.numpy as jnp
 
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import ess_geyer_device
+    from riemannhamiltonianmontecarlo.diagnostics import ess_geyer_device
 
     rng = np.random.default_rng(12)
     x = ar1_samples(rng, 1500, 3, rho=0.8)
@@ -116,7 +116,7 @@ def test_device_ess_matches_numpy_exact():
 
 
 def test_geweke_z_stationary_vs_drifting():
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import geweke_z
+    from riemannhamiltonianmontecarlo.diagnostics import geweke_z
 
     rng = np.random.default_rng(0)
     stationary = rng.normal(size=(4000, 3))
@@ -138,7 +138,7 @@ def test_device_ess_chunked_matches_unchunked():
     """Tiny max_bytes forces the parameter-chunked FFT path (OOM guard)."""
     import jax.numpy as jnp
 
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import ess_geyer_device
+    from riemannhamiltonianmontecarlo.diagnostics import ess_geyer_device
 
     rng = np.random.default_rng(5)
     x = jnp.asarray(np.stack([ar1_samples(rng, 400, 7, rho=0.6) for _ in range(3)]),
@@ -155,7 +155,7 @@ def test_device_ess_parts_matches_full():
     live only as per-segment device parts)."""
     import jax.numpy as jnp
 
-    from riemannhamiltonianmontecarlo_tpu.diagnostics.ess import (
+    from riemannhamiltonianmontecarlo.diagnostics.ess import (
         ess_geyer_device,
         ess_geyer_device_parts,
     )

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.experiments import SAMPLERS, build_kernel, run_experiment
-from riemannhamiltonianmontecarlo_tpu.utils.config import reference_preset
+from riemannhamiltonianmontecarlo.experiments import SAMPLERS, build_kernel, run_experiment
+from riemannhamiltonianmontecarlo.utils.config import reference_preset
 
 
 def test_presets_reproduce_reference_constants():
@@ -50,9 +50,11 @@ def test_run_experiment_mala_warmup_phase():
 def test_run_experiment_adaptive_step_size():
     """--adapt: dual-averaging warmup replaces the hand-tuned constant and
     lands acceptance near the optimal-scaling target."""
+    from riemannhamiltonianmontecarlo.models import synthetic_logreg
+
     res = run_experiment(
-        "mala", "australian", num_chains=64, num_samples=200, burn_in=300,
-        adapt=True,
+        "mala", synthetic_logreg(seed=0, n=690, d=15, w_scale=0.5),
+        num_chains=64, num_samples=200, burn_in=300, adapt=True,
     )
     assert res.adapted_step_size is not None and res.adapted_step_size > 0
     assert abs(res.accept_rate - 0.574) < 0.12, (res.accept_rate, res.adapted_step_size)
@@ -62,7 +64,7 @@ def test_run_experiment_adaptive_step_size():
 def test_all_samplers_buildable():
     import jax.numpy as jnp
 
-    from riemannhamiltonianmontecarlo_tpu.models import LogisticRegression, synthetic_logreg
+    from riemannhamiltonianmontecarlo.models import LogisticRegression, synthetic_logreg
 
     ds = synthetic_logreg(seed=0, n=40, d=3)
     model = LogisticRegression(jnp.asarray(ds.X, jnp.float32), jnp.asarray(ds.t, jnp.float32))
@@ -72,7 +74,7 @@ def test_all_samplers_buildable():
 
 
 def test_run_repeated_aggregation():
-    from riemannhamiltonianmontecarlo_tpu.experiments import run_repeated
+    from riemannhamiltonianmontecarlo.experiments import run_repeated
 
     results, agg = run_repeated(
         "hmc",
@@ -94,8 +96,8 @@ def test_run_collect_fn_pytree():
     import jax
     import jax.numpy as jnp
 
-    from riemannhamiltonianmontecarlo_tpu import models, parallel, utils
-    from riemannhamiltonianmontecarlo_tpu.samplers import mala
+    from riemannhamiltonianmontecarlo import models, parallel, utils
+    from riemannhamiltonianmontecarlo.samplers import mala
 
     ds = models.synthetic_logreg(seed=0, n=32, d=4)
     model = models.LogisticRegression(jnp.asarray(ds.X, jnp.float32), jnp.asarray(ds.t, jnp.float32))
@@ -119,7 +121,7 @@ def test_run_collect_fn_pytree():
 
 
 def test_run_workload_stochvol_small():
-    from riemannhamiltonianmontecarlo_tpu.experiments import run_workload
+    from riemannhamiltonianmontecarlo.experiments import run_workload
 
     res = run_workload("stochvol", "mala", num_chains=8, num_samples=20, burn_in=10,
                        stochvol_obs=60)
@@ -134,7 +136,7 @@ def test_stochvol_mala_transient_schedule():
     """StochVol MALA runs the transient-phase step sizes during burn-in
     (StochVol_MALA.m:62-67) and switches to stationary at the boundary
     (:279-283)."""
-    from riemannhamiltonianmontecarlo_tpu.experiments import build_workload, run_workload
+    from riemannhamiltonianmontecarlo.experiments import build_workload, run_workload
 
     kernel, _, _, _, warm = build_workload("stochvol", "mala", stochvol_obs=60)
     assert warm is not None
@@ -149,7 +151,7 @@ def test_stochvol_mala_transient_schedule():
 
 
 def test_run_workload_fhn_small():
-    from riemannhamiltonianmontecarlo_tpu.experiments import run_workload
+    from riemannhamiltonianmontecarlo.experiments import run_workload
 
     res = run_workload("fhn", "mala", num_chains=4, num_samples=10, burn_in=4,
                        fhn_obs=30, fhn_substeps=2)
@@ -157,7 +159,7 @@ def test_run_workload_fhn_small():
 
 
 def test_run_workload_lgc_small():
-    from riemannhamiltonianmontecarlo_tpu.experiments import run_workload
+    from riemannhamiltonianmontecarlo.experiments import run_workload
 
     res = run_workload("lgc", "rmhmc", num_chains=4, num_samples=16, burn_in=8, lgc_n=8)
     assert res.ess["latent"].shape == (64,)

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import fhn
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import rmhmc
+from riemannhamiltonianmontecarlo.models import fhn
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import rmhmc
 
 THETA_TRUE = np.array([0.2, 0.2, 3.0])
 
@@ -84,7 +84,7 @@ def test_rmhmc_posterior_near_truth(model):
 def test_fhn_mmala_posterior_near_truth(model):
     """Posterior correctness (not smoke) for mMALA, the paper's FHN winner
     (Table 11, ODE_mMALA.m:69: eps = 1)."""
-    from riemannhamiltonianmontecarlo_tpu.samplers import mmala
+    from riemannhamiltonianmontecarlo.samplers import mmala
 
     kernel = mmala.build(model, mmala.MMALAConfig(step_size=1.0, jitter=1e-6))
     c = 8
@@ -101,7 +101,7 @@ def test_fhn_mmala_posterior_near_truth(model):
 def test_fhn_comparator_kernels_smoke(model):
     """mMALA / MALA / Metropolis run on the ODE model via generic kernels
     (reference ODE_mMALA.m / ODE_MALA.m / ODE_Metropolis.m comparators)."""
-    from riemannhamiltonianmontecarlo_tpu.samplers import mala, metropolis, mmala
+    from riemannhamiltonianmontecarlo.samplers import mala, metropolis, mmala
 
     init = jnp.tile(jnp.asarray(THETA_TRUE, jnp.float32), (4, 1))
     for kernel in (

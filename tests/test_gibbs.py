@@ -23,11 +23,11 @@ import pytest
 
 REF_GIBBS = Path("/root/reference/code/gibbs_sampler.py")
 
-from riemannhamiltonianmontecarlo_tpu.models import LogisticRegression, synthetic_logreg
-from riemannhamiltonianmontecarlo_tpu.ops.gig import sample_gig_half
-from riemannhamiltonianmontecarlo_tpu.ops.truncnorm import truncated_normal_onesided
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import gibbs, hmc
+from riemannhamiltonianmontecarlo.models import LogisticRegression, synthetic_logreg
+from riemannhamiltonianmontecarlo.ops.gig import sample_gig_half
+from riemannhamiltonianmontecarlo.ops.truncnorm import truncated_normal_onesided
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import gibbs, hmc
 
 
 def test_truncnorm_signs_and_moments():

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import lgc
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import phmc
+from riemannhamiltonianmontecarlo.models import lgc
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import phmc
 
 
 @pytest.fixture(scope="module")
@@ -76,10 +76,11 @@ def test_lgc_phmc_posterior_field(small_model):
 
 
 def test_lgc_phmc_mixed_precision_parity(small_model):
-    """bf16-trajectory pHMC: exact endpoint Hamiltonians keep the
-    stationary distribution; only acceptance may move (phmc.py
+    """Reduced-precision-trajectory pHMC: exact endpoint Hamiltonians keep
+    the stationary distribution; only acceptance may move (phmc.py
     trajectory_precision).  On CPU DEFAULT==f32 so moments match tightly;
-    on TPU the same test bounds the posterior drift of the fast path."""
+    on a GPU (TF32) the same test bounds the posterior drift of the fast
+    path."""
     model, _ = small_model
     c = 8
     init = jnp.tile(model.prior_mean(), (c, 1))
@@ -125,7 +126,7 @@ def test_lgc_manifold_contractions(small_model):
 
 
 def test_lgc_mmala_small(small_model):
-    from riemannhamiltonianmontecarlo_tpu.samplers import mmala
+    from riemannhamiltonianmontecarlo.samplers import mmala
 
     model, x_true = small_model
     kernel = mmala.build(model, mmala.MMALAConfig(step_size=0.07))  # LGC_mMALA_LV.m:33
@@ -136,7 +137,7 @@ def test_lgc_mmala_small(small_model):
 
 
 def test_lgc_whitened_mala(small_model):
-    from riemannhamiltonianmontecarlo_tpu.samplers import mala
+    from riemannhamiltonianmontecarlo.samplers import mala
 
     model, _ = small_model
     wh = model.whitened()
@@ -154,7 +155,7 @@ def test_lgc_whitened_mala(small_model):
 
 def test_plots_render(small_model, tmp_path):
     """L5 visualization layer produces figures without a display."""
-    from riemannhamiltonianmontecarlo_tpu.diagnostics import plots
+    from riemannhamiltonianmontecarlo.diagnostics import plots
 
     model, x_true = small_model
     rng = np.random.default_rng(0)
@@ -171,8 +172,8 @@ def test_lgc_joint_sampler_small():
     """Joint (sigma^2, beta, x) inference on a small grid: hyper posterior
     stays in a sane region around the generating values and fields stay
     finite (the reference's 90-hour config, LGC_RMHMC_Paras_LV.m)."""
-    from riemannhamiltonianmontecarlo_tpu.models.lgc import LGCJointModel, generate_data
-    from riemannhamiltonianmontecarlo_tpu.samplers import lgc_joint
+    from riemannhamiltonianmontecarlo.models.lgc import LGCJointModel, generate_data
+    from riemannhamiltonianmontecarlo.samplers import lgc_joint
 
     y, x_true = generate_data(seed=7, n=12)
     model = LGCJointModel(y, n=12)
@@ -202,8 +203,8 @@ def test_lgc_joint_mmala_matches_rmhmc_posterior():
     * hyper block: with the latent step ~0, both sample the 2-D
       theta | x posterior -- theta means must agree tightly.
     """
-    from riemannhamiltonianmontecarlo_tpu.models.lgc import LGCJointModel, generate_data
-    from riemannhamiltonianmontecarlo_tpu.samplers import lgc_joint
+    from riemannhamiltonianmontecarlo.models.lgc import LGCJointModel, generate_data
+    from riemannhamiltonianmontecarlo.samplers import lgc_joint
 
     y, _ = generate_data(seed=7, n=10)
     model = LGCJointModel(y, n=10)
@@ -253,7 +254,7 @@ def test_lgc_joint_mmala_matches_rmhmc_posterior():
 
 def test_lgc_joint_hyper_geometry():
     """Hyper-block gradient matches autodiff; metric is PD."""
-    from riemannhamiltonianmontecarlo_tpu.models.lgc import LGCJointModel, generate_data
+    from riemannhamiltonianmontecarlo.models.lgc import LGCJointModel, generate_data
 
     y, _ = generate_data(seed=8, n=8)
     model = LGCJointModel(y, n=8)
@@ -275,7 +276,7 @@ def test_lgc_joint_closed_form_matches_autodiff_oracle():
     matmul; models/lgc.py::_hyper_geom_single) must match the jacfwd
     oracle (the round-2 implementation) at every part: logp, grad,
     metric, and the full dG tensor."""
-    from riemannhamiltonianmontecarlo_tpu.models.lgc import LGCJointModel, generate_data
+    from riemannhamiltonianmontecarlo.models.lgc import LGCJointModel, generate_data
 
     y, _ = generate_data(seed=9, n=8)
     model = LGCJointModel(y, n=8)
@@ -304,8 +305,8 @@ def test_lgc_joint_hyper_conditional_concentrates():
     theta | x posterior must concentrate near the generating
     (sigma^2, beta) = (1.91, 1/33) -- within a few posterior SDs, not
     the round-2 test's 0.1 < sigma^2 < 20 sanity box."""
-    from riemannhamiltonianmontecarlo_tpu.models.lgc import LGCJointModel, generate_data
-    from riemannhamiltonianmontecarlo_tpu.samplers import lgc_joint
+    from riemannhamiltonianmontecarlo.models.lgc import LGCJointModel, generate_data
+    from riemannhamiltonianmontecarlo.samplers import lgc_joint
 
     n = 16
     y, x_true = generate_data(seed=3, n=n)
@@ -335,7 +336,7 @@ def test_lgc_pmala_matches_phmc_posterior(small_model):
     frozen-metric Langevin proposal must agree with the phmc oracle's
     posterior mean on the same model, accept in a healthy window, and
     never diverge."""
-    from riemannhamiltonianmontecarlo_tpu.samplers import pmala
+    from riemannhamiltonianmontecarlo.samplers import pmala
 
     model, x_true = small_model
     kernel = pmala.build(model, model.metric_chol, model.metric_inv,
@@ -362,7 +363,7 @@ def test_lgc_pmala_low_memory_path_parity(small_model):
     """quad_fn + factor_only (the two-constant D=4096 program variant)
     must match the dense-constant path: metric_quad == ||delta L||^2 and
     the factored drift == the G^{-1} drift, to f32 tolerance."""
-    from riemannhamiltonianmontecarlo_tpu.samplers import pmala
+    from riemannhamiltonianmontecarlo.samplers import pmala
 
     model, _ = small_model
     delta = 0.3 * jax.random.normal(jax.random.key(8), (4, model.dim))

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu import ops
+from riemannhamiltonianmontecarlo import ops
 
 
 @pytest.fixture(scope="module", params=[3, 15, 24])

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import LogisticRegression, synthetic_logreg
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import hmc, iwls, mala, mmala, rmhmc
+from riemannhamiltonianmontecarlo.models import LogisticRegression, synthetic_logreg
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import hmc, iwls, mala, mmala, rmhmc
 
 from targets import ConstantMetricGaussian
 
@@ -148,7 +148,7 @@ def test_pmala_exact_moments_gaussian(gaussian):
     """Constant-metric mMALA (samplers/pmala.py, LGC_mMALA_LV.m contract)
     must reproduce the exact moments of a Gaussian target when
     preconditioned by its own precision."""
-    from riemannhamiltonianmontecarlo_tpu.samplers import pmala
+    from riemannhamiltonianmontecarlo.samplers import pmala
 
     prec64 = np.linalg.inv(gaussian.cov)
     mass_chol = jnp.asarray(np.linalg.cholesky(prec64), jnp.float32)

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import (
+from riemannhamiltonianmontecarlo.models import (
     LogisticRegression,
     autodiff_manifold,
     synthetic_logreg,
 )
-from riemannhamiltonianmontecarlo_tpu.models.base import FunctionModel
+from riemannhamiltonianmontecarlo.models.base import FunctionModel
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,7 @@ check required by BASELINE.json ("cross-host R-hat").
 import jax.numpy as jnp
 import numpy as np
 
-from riemannhamiltonianmontecarlo_tpu.diagnostics import split_rhat, split_rhat_device
+from riemannhamiltonianmontecarlo.diagnostics import split_rhat, split_rhat_device
 
 
 def _chains(rng, c, n, p, rho=0.0, offsets=None):
@@ -86,7 +86,7 @@ def test_parts_matches_host():
     """Segment-parts split-R-hat == dense f64 host R-hat (the parts
     representation is how multi-GB kept-sample trajectories reach the
     RESULTS.md divergent/R-hat columns)."""
-    from riemannhamiltonianmontecarlo_tpu.diagnostics.rhat import split_rhat_parts
+    from riemannhamiltonianmontecarlo.diagnostics.rhat import split_rhat_parts
 
     rng = np.random.default_rng(5)
     x = _chains(rng, 6, 900, 4, offsets=[0.0, 0.5, 1.0, 1.5, 2.0, 2.5])

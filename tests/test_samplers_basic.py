@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import LogisticRegression, synthetic_logreg
-from riemannhamiltonianmontecarlo_tpu.models.base import FunctionModel
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import hmc, metropolis
+from riemannhamiltonianmontecarlo.models import LogisticRegression, synthetic_logreg
+from riemannhamiltonianmontecarlo.models.base import FunctionModel
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import hmc, metropolis
 
 
 class GaussianTarget:

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.parallel import make_mesh, run
-from riemannhamiltonianmontecarlo_tpu.samplers import hmc
+from riemannhamiltonianmontecarlo.parallel import make_mesh, run
+from riemannhamiltonianmontecarlo.samplers import hmc
 
 
 class IsoGaussian:
@@ -63,8 +63,8 @@ def test_lgc_latent_sharded_matches_replicated():
     reproduce the replicated run."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from riemannhamiltonianmontecarlo_tpu.models import lgc as lgc_model
-    from riemannhamiltonianmontecarlo_tpu.samplers import phmc
+    from riemannhamiltonianmontecarlo.models import lgc as lgc_model
+    from riemannhamiltonianmontecarlo.samplers import phmc
 
     n = 32  # D = 1024
     y, _ = lgc_model.generate_data(seed=0, n=n)
@@ -98,8 +98,8 @@ def test_blr_data_sharded_matches_replicated():
     over the axis) must reproduce the replicated model exactly."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from riemannhamiltonianmontecarlo_tpu.models import datasets, logreg
-    from riemannhamiltonianmontecarlo_tpu.samplers import rmhmc
+    from riemannhamiltonianmontecarlo.models import datasets, logreg
+    from riemannhamiltonianmontecarlo.samplers import rmhmc
 
     ds = datasets.load_dataset("australian")
     x, t = ds.X, ds.t
@@ -137,8 +137,8 @@ def test_blr_two_axis_chains_by_data():
     over 'data' in the same jit -- the DP x TP layout for huge-N BLR."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from riemannhamiltonianmontecarlo_tpu.models import datasets, logreg
-    from riemannhamiltonianmontecarlo_tpu.samplers import mala
+    from riemannhamiltonianmontecarlo.models import datasets, logreg
+    from riemannhamiltonianmontecarlo.samplers import mala
 
     ds = datasets.load_dataset("heart")
     x, t = ds.X, ds.t
@@ -159,25 +159,8 @@ def test_blr_two_axis_chains_by_data():
                                rtol=1e-4, atol=1e-4)
 
 
-def test_graft_entry_dryrun_multichip():
-    """The driver-facing multichip dry run must pass on the virtual mesh."""
-    import __graft_entry__ as graft
-
-    graft.dryrun_multichip(len(jax.devices()))
-
-
-def test_graft_entry_single_chip():
-    import __graft_entry__ as graft
-
-    fn, args = graft.entry()
-    out = jax.jit(fn)(*args)
-    pos, accept = jax.block_until_ready(out)
-    assert pos.shape == (64, 6)
-    assert np.isfinite(np.asarray(pos)).all()
-
-
 def test_monitor_wrapper_runs(capfd):
-    from riemannhamiltonianmontecarlo_tpu.parallel import monitor
+    from riemannhamiltonianmontecarlo.parallel import monitor
 
     model = IsoGaussian()
     kernel = monitor(hmc.build(model, hmc.HMCConfig(step_size=0.3, num_leapfrog=4)), every=5)

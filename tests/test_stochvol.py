@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.models import stochvol
-from riemannhamiltonianmontecarlo_tpu.parallel import run
-from riemannhamiltonianmontecarlo_tpu.samplers import stochvol as sv_kernel
+from riemannhamiltonianmontecarlo.models import stochvol
+from riemannhamiltonianmontecarlo.parallel import run
+from riemannhamiltonianmontecarlo.samplers import stochvol as sv_kernel
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +37,7 @@ def test_latent_metric_matches_quadratic_form(model):
     diag, off = model.ar1_precision(theta)
     key = jax.random.key(1)
     x = jax.random.normal(key, (1, model.num_obs))
-    from riemannhamiltonianmontecarlo_tpu.ops import tridiag
+    from riemannhamiltonianmontecarlo.ops import tridiag
 
     quad = jnp.sum(x * tridiag.matvec(diag, off, x), axis=-1)
     sigma, phi = 0.2, 0.9

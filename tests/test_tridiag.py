@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from riemannhamiltonianmontecarlo_tpu.ops import tridiag
+from riemannhamiltonianmontecarlo.ops import tridiag
 
 
 def make_system(rng, batch, t):

@@ -3,13 +3,10 @@
 Usage: PYTHONPATH=. python tools/ess_engine_bench.py [--dataset german]
        [--chains 2048]
 
-VERDICT round-2 item 8: the threaded C++ Geyer engine
-(``native/fastess.cpp``) must be used by at least one results run at
-C*P >> 1e4 with a timing comparison against the NumPy path, or be
-deleted.  This tool runs the real BLR RMHMC experiment through
-``--ess-mode native`` (the CLI route, ``experiments.py``), then times the
-three host-side estimators on the same (C, S, D) tensor and checks
-bit-level parity.  Splices RESULTS.md section ``ess-engine``.
+Runs the real BLR RMHMC experiment through ``--ess-mode native`` (the
+CLI route, ``experiments.py``), then times the threaded C++ Geyer engine
+(``native/fastess.cpp``) against the NumPy path on the same (C, S, D)
+tensor, checks parity, and prints a markdown table.
 """
 
 from __future__ import annotations
@@ -23,8 +20,6 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-RESULTS = Path(__file__).resolve().parents[1] / "RESULTS.md"
-
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -32,8 +27,8 @@ def main() -> None:
     ap.add_argument("--chains", type=int, default=2048)
     args = ap.parse_args()
 
-    from riemannhamiltonianmontecarlo_tpu import diagnostics
-    from riemannhamiltonianmontecarlo_tpu.experiments import run_experiment
+    from riemannhamiltonianmontecarlo import diagnostics
+    from riemannhamiltonianmontecarlo.experiments import run_experiment
 
     print(f"--- BLR {args.dataset} rmhmc, ess_mode=native "
           f"({args.chains} chains)", flush=True)
@@ -59,7 +54,7 @@ def main() -> None:
 
     section = (
         f"## Native ESS engine -- BLR {args.dataset} RMHMC, "
-        f"{c} chains x {s} samples x {d} coords, 2-vCPU host\n\n"
+        f"{c} chains x {s} samples x {d} coords\n\n"
         "A full-protocol run measured end-to-end through `--ess-mode "
         "native`\n(`experiments.py` CLI -> `native/fastess.cpp`, threaded "
         "FFT Geyer; its own\nrun stats below -- the BLR table row is an "
@@ -76,11 +71,7 @@ def main() -> None:
         f"s/minESS {res.time_per_min_ess:.2e}, accept {res.accept_rate:.3f}, "
         f"max R-hat {res.rhat_max:.4f}."
     )
-    from make_results import splice
-
-    text = RESULTS.read_text() if RESULTS.exists() else "# RESULTS\n"
-    RESULTS.write_text(splice(text, "ess-engine", section))
-    print("=== wrote section ess-engine", flush=True)
+    print(section, flush=True)
 
 
 if __name__ == "__main__":
